@@ -1,20 +1,20 @@
 """Multi-device weak-scaling benchmark — the distributed enumeration path.
 
 Measures `solve_front` through the MeshScheduler (domain-partitioned AIRA
-workers + cross-domain box/ideal-point exchange collectives) at mesh sizes
-1/2/4/8 on the virtual CPU mesh — the same substrate the driver's
-`dryrun_multichip` validates — so the exchange-overhead-vs-pruning-benefit
-trade is ON RECORD even though only one physical TPU chip is attached.
+workers + cross-domain box/ideal-point exchange collectives) at several
+mesh sizes over the devices JAX finds: the GPUs of one host, or a virtual
+CPU mesh (`JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8`),
+the same substrate `dryrun_multichip` validates.  Every row names its
+device.
 
 Two backends per mesh size:
   numpy — isolates the scheduler + collective overhead (host LPs, no
-          device kernels, no interpret-mode noise)
-  wave  — the production path (batched device LP kernels shard_map-ed over
-          the mesh; interpret-mode Mosaic on CPU, so absolute times are NOT
-          chip times — only the scaling SHAPE is meaningful)
+          device kernels)
+  wave  — the production path (batched device LP kernel sharded over the
+          mesh)
 
-Writes BENCH_MESH.md + BENCH_MESH.json.  Run:
-    python bench_mesh.py [--sizes 1 2 4 8] [--instance 3AP05] [--workers 6]
+Writes .bench_scale/BENCH_MESH.md + BENCH_MESH.json.  Run:
+    python bench_mesh.py [--sizes 1 2 4 8] [--instance G3AP05] [--workers 6]
 """
 
 from __future__ import annotations
@@ -25,17 +25,12 @@ import os
 import sys
 import time
 
-os.environ.setdefault(
-    "XLA_FLAGS",
-    os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8",
-)
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-EXAMPLES = "/root/reference/Examples"
+OUT_DIR = os.path.join(REPO, ".bench_scale")
 
 
 def run_one(
@@ -46,10 +41,7 @@ def run_one(
 
     os.environ["MOIP_MESH_MODE"] = mode
 
-    path = f"{EXAMPLES}/{name}.lp"
-    if not os.path.exists(path):
-        path = os.path.join(REPO, "examples", f"{name}.lp")
-    p = read_problem(path)
+    p = read_problem(os.path.join(REPO, "examples", f"{name}.lp"))
     # warm-up (compiles the CPU kernels / collective programs)
     solve_front(
         p, n_workers=workers, backend=backend, mesh_devices=mesh_n, dp="off"
@@ -64,13 +56,14 @@ def run_one(
         if res.domain_ips
         else res.ip_count
     )
+    dev = jax.devices()[0]
     return {
         "instance": name,
         "backend": backend,
         "mode": mode,
         "mesh": mesh_n,
         "workers": workers,
-        "measured_round": 5,
+        "device": f"{dev.platform} {dev.device_kind}",
         "elapsed_s": round(dt, 2),
         "points": res.solution_count,
         "ips": res.ip_count,
@@ -85,16 +78,14 @@ def run_one(
 
 def render(rows: list) -> str:
     out = [
-        "# BENCH_MESH — distributed-enumeration weak scaling (virtual CPU mesh)",
+        "# BENCH_MESH — distributed-enumeration weak scaling",
         "",
-        "Mesh = N virtual CPU devices (`--xla_force_host_platform_device_count`),",
-        "the exact substrate `dryrun_multichip` validates.  Workers are",
-        "domain-partitioned over devices; each round ends in a cross-domain",
-        "infeasible-box allgather + ideal-point pmin/pmax allreduce",
-        "(parallel/mesh.py).  `numpy` rows isolate scheduler+collective",
-        "behaviour; `wave` rows run the production device path in Mosaic",
-        "interpret mode (absolute times are NOT chip times — compare shapes,",
-        "not values; one real chip measures ~" + "2,000+ lex-IP/s, BENCH_r*).",
+        "Mesh = N devices of the row's `device` (GPUs of one host, or virtual",
+        "CPU devices via `--xla_force_host_platform_device_count`).  Workers",
+        "are domain-partitioned over devices; each round ends in a",
+        "cross-domain infeasible-box allgather + ideal-point pmin/pmax",
+        "allreduce (parallel/mesh.py).  `numpy` rows isolate",
+        "scheduler+collective behaviour; `wave` rows run the device LP path.",
         "",
         "Modes: `strip` (round-5 default) partitions domains by EPP range —",
         "domains own DISJOINT slices of the last objective, so total IPs",
@@ -110,16 +101,15 @@ def render(rows: list) -> str:
         "so `elapsed` carries the sequential backend + collective",
         "overhead and cannot show the multi-chip win directly).",
         "",
-        "| instance | backend | mode | mesh | workers | elapsed s | IPs | crit IPs | IP/s | rounds | points | round |",
+        "| instance | backend | mode | mesh | workers | elapsed s | IPs | crit IPs | IP/s | rounds | points | device |",
         "|---|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         out.append(
             "| {instance} | {backend} | {mode} | {mesh} | {workers} |"
             " {elapsed_s} | {ips} | {crit_ips} | {ips_per_s} | {rounds} |"
-            " {points} | {measured_round} |".format(
-                **{"mode": "sync", "measured_round": "≤4",
-                   "crit_ips": "—", **r}
+            " {points} | {device} |".format(
+                **{"mode": "sync", "device": "?", "crit_ips": "—", **r}
             )
         )
     out.append("")
@@ -134,14 +124,15 @@ def render(rows: list) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", nargs="*", type=int, default=[1, 2, 4, 8])
-    ap.add_argument("--instance", default="3AP05")
+    ap.add_argument("--instance", default="G3AP05")
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("--backends", nargs="*", default=["numpy", "wave"])
     ap.add_argument("--modes", nargs="*", default=["strip", "sync"])
     args = ap.parse_args(argv)
 
     rows = []
-    jpath = os.path.join(REPO, "BENCH_MESH.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    jpath = os.path.join(OUT_DIR, "BENCH_MESH.json")
     if os.path.exists(jpath):
         with open(jpath) as fh:
             rows = json.load(fh)
@@ -169,7 +160,7 @@ def main(argv=None) -> int:
                 )
                 with open(jpath, "w") as fh:
                     json.dump(rows, fh, indent=1)
-                with open(os.path.join(REPO, "BENCH_MESH.md"), "w") as fh:
+                with open(os.path.join(OUT_DIR, "BENCH_MESH.md"), "w") as fh:
                     fh.write(render(rows))
     return 0
 

@@ -1,13 +1,13 @@
-"""moip_aira_tpu — a TPU-native exact multi-objective integer programming framework.
+"""moip_aira_tpu — an exact multi-objective integer programming framework in JAX.
 
 A from-scratch rebuild of the capabilities of WPettersson/moip_aira (the AIRA
 recursive algorithm of Ozlen-Burton-MacRae 2014 plus the synergistic and EPP
-parallel decompositions of Pettersson-Ozlen 2019), designed TPU-first:
+parallel decompositions of Pettersson-Ozlen 2019), built for an accelerator:
 
 * The inner single-objective ILP subproblems (reference: CPLEX ``CPXmipopt``,
   src/aira.cpp:452-536) are solved by a batched dense bounded-variable simplex
   plus branch-and-bound written in JAX, vmapped over many independent
-  subproblems per chip.
+  subproblems per device.
 * The worker decompositions (reference: src/cluster.cpp, src/aira.cpp:1886-1990)
   become host-side state machines feeding a bulk-synchronous batched solve
   round, with bound sharing performed between rounds.

@@ -2,8 +2,8 @@
 
 Reference parity: src/aira.cpp:140-364 — same flags
 (``-p/--lp``, ``-o/--output``, ``-t/--threads``, ``-c/--cplex_threads``,
-``-s/--spread``, ``--split``, ``--split-normal``) plus new TPU-framework
-flags (``--backend``, ``--mesh``).  ``-c`` (solver-internal threads) maps to
+``-s/--spread``, ``--split``, ``--split-normal``) plus this framework's
+own flags (``--backend``, ``--mesh``, ``--dp``, ``--sweep``, ``--stats``).  ``-c`` (solver-internal threads) maps to
 the intra-solve batching knob of the device backend; it is accepted for
 compatibility.
 """
@@ -20,12 +20,13 @@ from moip_aira_tpu import __version__
 from moip_aira_tpu.api import solve_front
 from moip_aira_tpu.io import read_problem
 from moip_aira_tpu.io.writer import write_out
+from moip_aira_tpu.utils.device import enable_compile_cache
 
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="aira-tpu",
-        description="TPU-native exact multi-objective integer programming "
+        description="Exact multi-objective integer programming on a GPU "
         "(AIRA algorithm with synergistic / EPP parallel decompositions)",
     )
     ap.add_argument("-p", "--lp", dest="problem", required=True,
@@ -76,6 +77,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    enable_compile_cache()
 
     problem = read_problem(args.problem)
     out_path = args.output
@@ -104,10 +106,8 @@ def main(argv=None) -> int:
     with open(out_path, "w") as fh:
         write_out(fh, front, version_tag=__version__)
     if args.stats:
-        import sys as _sys
-
         bs = front.batch_sizes or []
-        _sys.stderr.write(
+        sys.stderr.write(
             f"[stats] rounds={front.rounds} ip_solves={front.ip_count} "
             f"mean_batch={np.mean(bs) if bs else 0.0:.1f} "
             f"max_batch={max(bs) if bs else 0} "

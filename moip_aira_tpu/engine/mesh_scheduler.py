@@ -347,7 +347,7 @@ class MeshScheduler:
         all_store: Solutions,
         split_normal: bool = False,
     ) -> Solutions:
-        """EPP-strip distribution (round-5 design; VERDICT r4 #4).
+        """EPP-strip distribution (the default mesh mode).
 
         Domains own DISJOINT contiguous ranges of the last objective
         (the reference's own `--split` decomposition, aira.cpp:1886-1990,

@@ -3,8 +3,9 @@
 This is the execution substrate that replaces the reference's
 one-OS-thread-per-worker model (src/aira.cpp:297-324): all live workers are
 advanced until each either finishes or yields a CLMOIP subproblem; the
-round's subproblems are then solved as ONE batched backend call (on TPU: a
-single jitted vmapped lexicographic branch-and-bound kernel), results are fed
+round's subproblems are then solved as ONE batched backend call (on the
+device: one batched wave of LPs, or one jitted vmapped lexicographic
+branch-and-bound kernel), results are fed
 back, and the next round begins.  Bound sharing between workers happens
 naturally at round boundaries — the device-side analogue of the reference's
 shared-memory exchange, and the single-host analogue of the mesh collective

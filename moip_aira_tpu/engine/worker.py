@@ -9,9 +9,9 @@ checks) is transcribed faithfully; what changes is the execution model:
   environment, and blocks inside ``CPXmipopt``.  Here a worker is a Python
   generator that *yields* each CLMOIP subproblem (an objective-bound vector)
   and receives the solved objective vector back.  The scheduler collects the
-  yields of all live workers and solves them as one batched, jitted TPU call
+  yields of all live workers and solves them as one batched device call
   per round (engine/scheduler.py), which is how the sequential-per-worker
-  algorithm extracts data parallelism on a chip.
+  algorithm extracts data parallelism on an accelerator.
 * The reference's mutex/condvar bound exchange (aira.cpp:923-1574) is
   vestigial — ``Locking_Vars::add_state`` is never called, so every thread
   always takes the non-blocking branch (SURVEY §2/C8).  The cooperative

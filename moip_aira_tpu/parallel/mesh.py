@@ -9,7 +9,7 @@ equivalent is bulk-synchronous (SURVEY §5 north star):
 * the round's CLMOIP subproblems are a batch sharded over the mesh — each
   chip solves its share of AIRA workers / EPP strips / B&B nodes,
 * per-objective bounds are combined with a min/max allreduce over the mesh
-  axes (``jax.lax.pmin``/``pmax`` inside ``shard_map`` — ICI-resident),
+  axes (``jax.lax.pmin``/``pmax`` inside ``shard_map``, device to device),
 * newly found incumbent points are allgathered so every chip's relaxation
   store can prune with them.
 
@@ -108,7 +108,7 @@ def make_distributed_round(problem: Problem, mesh: Mesh, batch_per_device: int =
         vals = results.astype(jnp.float64)
         lo_loc = jnp.where(feas[:, None], vals, BIGVAL).min(axis=0)
         hi_loc = jnp.where(feas[:, None], vals, -BIGVAL).max(axis=0)
-        # monotone min/max reduction over ICI — the reference's
+        # monotone min/max reduction across devices — the reference's
         # `share_bounds` fixpoint (aira.cpp:1374-1512) in one collective
         for ax in axes:
             lo_loc = jax.lax.pmin(lo_loc, ax)

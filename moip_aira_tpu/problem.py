@@ -3,7 +3,7 @@
 Reference parity: src/problem.{h,cpp}.  The reference keeps the problem inside
 a CPLEX ``CPXLPptr`` and mutates objective rows / RHS in place
 (problem.cpp:119-152, aira.cpp:467-518).  Here the problem is a set of dense
-arrays designed for the TPU solve path:
+arrays designed for the batched device solve path:
 
 * ``A`` (m_struct x n)   structural constraint matrix,
 * ``row_lb`` / ``row_ub`` (m_struct)  activity bounds per structural row

@@ -111,7 +111,7 @@ def detect_ap_family(problem: Problem) -> Optional[APFamily]:
 
     Accepts: all variables binary; ALL structural rows are 0/1 equality
     rows with rhs 1 forming one square bipartite 2-regular structure (the
-    shape of /root/reference/Examples/2AP05.lp); objectives integer.  Any
+    shape of the reference's Examples/2AP05.lp); objectives integer.  Any
     extra structural row, non-square sides, or duplicate cells reject —
     those shapes keep the general engine.
     """

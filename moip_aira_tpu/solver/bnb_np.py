@@ -151,7 +151,7 @@ def solve_mip(
             # cost-weighted branching (MOIP_BRANCH=costfrac): prefer the
             # fractional variable with the largest objective leverage —
             # measured to shrink correlated-knapsack trees vs pure
-            # most-fractional (see STATUS round-2 notes)
+            # most-fractional
             fr = np.minimum(frac, 1.0 - np.minimum(frac, 1.0))
             cand = frac > INT_TOL
             w = np.abs(c[int_idx]) * (fr if _BRANCH_RULE == "costfrac" else 1.0)

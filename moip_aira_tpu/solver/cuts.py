@@ -1,7 +1,7 @@
 """Exactly-valid cutting planes for binary knapsack-structured rows.
 
 The reference gets its cutting planes for free from CPLEX inside
-``CPXmipopt`` (/root/reference/src/aira.cpp:480-487); on the KP2D family
+``CPXmipopt`` (reference src/aira.cpp:480-487); on the KP2D family
 (near-uniform weights, capacity = half the weight sum) those cuts are what
 keeps trees small — pure LP-bound branch-and-bound explodes by ~100x.
 
@@ -20,7 +20,7 @@ no rigor gap against the exactness invariant (CLAUDE.md):
 Separation is the classic greedy on the fractional LP point; each cut is
 checked for violation before it is kept.  Cuts are appended as ordinary
 <=/>= rows (one new row each), so every downstream consumer — the exact
-host simplex, the f64 certifier, the Pallas kernels — prices them like any
+host simplex, the f64 certifier, the device kernels — prices them like any
 other constraint and exactness is untouched.
 """
 

@@ -1,10 +1,10 @@
-"""Batched lexicographic branch-and-bound — the TPU compute path.
+"""Batched lexicographic branch-and-bound — the monolithic device kernel.
 
 One jitted call solves a whole batch of CLMOIP subproblems end-to-end on
 device: for each lane, a ``lax.scan`` over the objective permutation runs a
 depth-first branch-and-bound (``lax.while_loop`` over a fixed-capacity node
 stack) whose LP relaxations are the dense bounded-variable simplex of
-simplex_jax.py.  This is the TPU-native replacement for the reference's
+simplex_jax.py, in float64.  This is the batched replacement for the reference's
 per-worker ``CPXmipopt`` loop (src/aira.cpp:452-536): where the reference
 gets parallelism from OS threads each blocking in CPLEX, here every AIRA
 worker / EPP strip / B&B node is a vmap lane on the same chip.
@@ -29,31 +29,9 @@ from moip_aira_tpu.sense import INF, Sense
 from moip_aira_tpu.solver import simplex_jax as sx
 from moip_aira_tpu.solver.lex import LexOutcome, LexRequest, NumpyLexBackend
 from moip_aira_tpu.solver.status import SolveStatus
+from moip_aira_tpu.utils.device import enable_compile_cache
 
 INT_TOL = 1e-6
-
-_CACHE_ENABLED = False
-
-
-def _enable_persistent_cache() -> None:
-    """TPU compiles of the nested while-loop kernel are expensive (minutes);
-    cache them on disk so each problem shape compiles once per machine."""
-    global _CACHE_ENABLED
-    if _CACHE_ENABLED:
-        return
-    import os
-
-    cache_dir = os.environ.get(
-        "MOIP_JAX_CACHE", os.path.expanduser("~/.cache/moip_aira_tpu_jax")
-    )
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass
-    _CACHE_ENABLED = True
 
 # status codes for a lex solve lane
 LEX_OPTIMAL = 0
@@ -248,16 +226,15 @@ class JaxLexBackend:
 
     A single static batch width is used for every call (padded with dummy
     lanes / chunked when oversubscribed) so each problem shape triggers
-    exactly ONE device compile — TPU compiles of the nested while-loop kernel
-    are expensive, and the persistent cache then makes them one-time per
-    machine.
+    exactly ONE device compile, which the persistent compile cache
+    (utils/device.py) then keeps across runs.
     """
 
     name = "jax"
 
     def __init__(self, problem: Problem, batch_width: int = 32, **kernel_kwargs):
         jax.config.update("jax_enable_x64", True)
-        _enable_persistent_cache()
+        enable_compile_cache()
         self.problem = problem
         self.batch_width = batch_width
         self.kernel = make_lex_kernel(problem, **kernel_kwargs)

@@ -1,12 +1,9 @@
 """Batched exact (f64) bounded-variable revised simplex — host, lockstep.
 
-Round-2's measured scaling wall was the EXACT HOST RESOLUTION of device
-records whose f64 certificate failed rigor (solver/wave.py fragment audit):
-each failed record paid one `simplex_np.solve_lp` call — a per-pivot Python
-loop over (m, n+2m) arrays, ~2-10 ms warm and ~90-170 ms from a cold or
-garbage basis — and on 2AP40 ~39% of ~150k records failed, so the host
-crawled through ~2,400 s of sequential LPs while the chip idled (VERDICT
-r2 #1).
+The wave backend re-solves on the host every device lane whose f64
+certificate fails (solver/wave.py).  One `simplex_np.solve_lp` call per
+lane is a per-pivot Python loop over (m, n+2m) arrays, so a wave with many
+failed lanes would leave the device idle while the host crawls.
 
 This module solves S such LPs AT ONCE: one lockstep iteration advances
 every live lane with whole-batch NumPy ops (one (S,m)x(m,nc) GEMM prices
@@ -28,7 +25,7 @@ ground-truth court):
 * degenerate cycling is broken by Bland's rule after a stall, per lane.
 
 Replaces the same reference hot path as simplex_np: the LP relaxations
-inside CPXmipopt (/root/reference/src/aira.cpp:480-487) — CPLEX performs
+inside CPXmipopt (reference src/aira.cpp:480-487) — CPLEX performs
 this exact-resolution role internally; here it is the f64 court for the
 speculative f32 device kernels.
 """

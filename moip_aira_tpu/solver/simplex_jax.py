@@ -4,20 +4,17 @@ The device twin of solver/simplex_np.py: same algorithm (logical-variable
 form, composite phase-1, Dantzig pricing with a Bland anti-cycling fallback,
 largest-pivot ratio tie-break), same tolerances, expressed as a
 ``lax.while_loop`` over a dense tableau so that XLA can fuse the pricing
-matvec, the ratio test and the rank-1 pivot update into a handful of VPU
+reduction, the ratio test and the rank-1 pivot update into a handful of
 kernels.  All shapes are static; everything vmaps over a batch of
 (c, lo, hi) triples, which is how hundreds of independent branch-and-bound
-nodes / AIRA subproblems share one TPU chip.
+nodes / AIRA subproblems share one device.
 
-Dtype follows the system matrix W: float64 for the exact CPU path, float32
-for accelerator runs (f64 emulation on TPU inflates XLA compile times ~20x).
-Exact front parity (BASELINE.md §A) is preserved for the f32 path by the f64
-basis certificates in solver/verify.py.  NOTE: on the TPU backend this XLA
-kernel miscomputes at batch sizes above ~64 (a gather/scatter lowering
-defect observed on v5e — wrong objectives under Bland's rule); the Pallas
-kernel (pallas_lp.py), which replaces every gather/scatter with one-hot
-arithmetic, is the TPU production path.  This kernel remains the CPU path
-and the oracle twin of simplex_np.
+Dtype follows the system matrix W: float64 for the exact path, float32 for
+the wave backend's device waves.  Exact front parity (BASELINE.md §A) is
+preserved for the f32 path by the f64 basis certificates in
+solver/verify.py.  The kernel contains no ``dot``/``matmul``: every product
+is an elementwise multiply and a reduction, so no float32 product can be
+lowered to reduced-precision tensor-core arithmetic (TF32).
 """
 
 from __future__ import annotations
@@ -87,9 +84,8 @@ def make_lp_solver(
 
     Returns solve(c_full, lo, hi) -> LPOutcome, pure and vmap-able.
     c_full has length nc (structural costs then zeros).  Works in W's dtype:
-    float64 for the exact path, float32 for the fast TPU path (whose results
-    are then certified in f64 by solver/verify.py — f64 emulation on TPU
-    inflates XLA compile times ~20x, so the on-device arithmetic stays f32).
+    float64 for the exact path, float32 for the wave backend (whose results
+    are then certified in f64 by solver/verify.py).
     """
     m, nc = W.shape
     n = nc - m
@@ -150,9 +146,9 @@ def make_lp_solver(
                 c_full[st.basis],
             )
             zv = _nonbasic_values(st.at_upper, lo, hi)
-            # NOTE: explicit VPU reduction, NOT a matvec — on TPU an f32
-            # matmul may be routed through the MXU at bf16 input precision,
-            # and ~1e-2 reduced-cost noise makes the pricing loop cycle.
+            # NOTE: explicit reduction, NOT a matvec — a float32 dot may be
+            # lowered to TF32 (about three decimal digits), and ~1e-2
+            # reduced-cost noise makes the pricing loop cycle.
             d_raw = -jnp.sum(cB[:, None] * st.T, axis=0)
             d = jnp.where(phase == 1, d_raw, c_full + d_raw)
             cur_obj = jnp.where(

@@ -2,7 +2,7 @@
 
 This is the host-side reference implementation of the LP kernel that replaces
 the LP relaxation inside CPLEX's ``CPXmipopt`` (reference src/aira.cpp:480).
-The JAX/TPU backend (solver/simplex_jax.py) implements the *same algorithm*
+The JAX device kernel (solver/simplex_jax.py) implements the *same algorithm*
 with the same tolerances so both produce identical bases; this NumPy version
 is the debuggable oracle used by the unit tests — and the EXACT court of last
 resort for every device lane whose f64 certificate fails, so its terminal

@@ -1,11 +1,10 @@
-"""Adaptive parallel bound sweep — the TPU-shaped bi-objective front driver.
+"""Adaptive parallel bound sweep — the batch-shaped bi-objective front driver.
 
 The AIRA epsilon ladder (engine/worker.py; reference aira.cpp:700-1840)
 discovers the k=2 nondominated set SEQUENTIALLY: each round's objective
 bound depends on the previous round's solved point, so a front of F points
 needs ~F dependent rounds, and a device batch built from 1-2 workers runs
-almost empty (measured on 2AP20: 124 fragment waves averaging 17 of 256
-lanes).  That control-dependence is an artefact of walking the ladder one
+almost empty.  That control-dependence is an artefact of walking the ladder one
 rung at a time — not of the problem:
 
   For MIN objectives, the lexicographic optimum (f0, f1) of the box

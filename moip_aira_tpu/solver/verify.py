@@ -1,7 +1,7 @@
 """Exact (f64) certification of f32 device LP results — rigorous intervals.
 
-The TPU kernel runs the simplex in float32 (f64 emulation inflates XLA-TPU
-compile times ~20x and halves throughput).  Exactness is restored here, and
+The wave backend's device kernel runs the simplex in float32.  Exactness is
+restored here, and
 it must be *rigorous*: a tolerance-level soundness slip at scale produced a
 dominated point on 2AP40 (one bad prune in ~150k certified LPs).  The
 certificates therefore bound their own floating-point error:
@@ -236,7 +236,7 @@ class LPVerifier:
             free_nb = ~inb_o & free_cols[so]
             # soundness: a nonbasic column flagged "at upper" with an
             # INFINITE upper bound is an invalid solver state — rejecting it
-            # is what kept the inf-bound pivot-row bug (pallas_lp history)
+            # is what kept an earlier device kernel's inf-bound pivot-row bug
             # from silently certifying wrong optima
             bogus_state = ~inb_o & atup_o & ~fhi_o
             ok_i[so] = (

@@ -27,7 +27,7 @@ from moip_aira_tpu.solver.lex import LexRequest, NumpyLexBackend
 
 from test_differential import brute_force_front
 
-REF = "/root/reference/Examples"
+from conftest import EXAMPLES as REF
 
 
 def random_ap(seed: int, N: int, k: int = 2, mirror: bool = False) -> Problem:
@@ -68,7 +68,7 @@ def golden(name: str) -> np.ndarray:
 
 # ---------------------------------------------------------------- detection
 def test_detects_reference_ap():
-    p = read_problem(f"{REF}/2AP05.lp")
+    p = read_problem(f"{REF}/G2AP05.lp")
     fam = detect_ap_family(p)
     assert fam is not None
     assert fam.N == 5 and not fam.mirror
@@ -76,7 +76,7 @@ def test_detects_reference_ap():
 
 
 def test_rejects_knapsack_family():
-    p = read_problem("examples/KP2D50.lp")
+    p = read_problem(f"{REF}/KP2D50.lp")
     assert detect_ap_family(p) is None
 
 
@@ -169,7 +169,7 @@ def test_infeasible_box():
 
 
 # ------------------------------------------------------------------- golden
-@pytest.mark.parametrize("name", ["2AP05", "3AP05"])
+@pytest.mark.parametrize("name", ["G2AP05", "G3AP05"])
 def test_golden_small(name):
     p = read_problem(f"{REF}/{name}.lp")
     res = solve_front(p, n_workers=2, backend="apbb", dp="off")
@@ -178,17 +178,49 @@ def test_golden_small(name):
     assert (res.points == g).all()
 
 
-def test_golden_4ap05_auto_routing():
-    p = read_problem(f"{REF}/4AP05.lp")
+def _matching_front(p: Problem, N: int) -> np.ndarray:
+    """Independent oracle: every one of the N! perfect matchings, filtered
+    to the nondominated set, in the store's descending-lex order."""
+    import itertools
+
+    pts = set()
+    for perm in itertools.permutations(range(N)):
+        x = np.zeros(N * N)
+        x[[a * N + perm[a] for a in range(N)]] = 1.0
+        pts.add(tuple(np.rint(p.C @ x).astype(np.int64)))
+    vals = np.array(sorted(pts), dtype=np.int64)
+    sign = 1 if p.objsen is Sense.MIN else -1
+    keep = [
+        i for i in range(len(vals))
+        if not any(
+            (sign * vals[j] <= sign * vals[i]).all()
+            and (sign * vals[j] < sign * vals[i]).any()
+            for j in range(len(vals))
+        )
+    ]
+    front = vals[keep]
+    order = np.lexsort(tuple(front[:, i] for i in range(front.shape[1] - 1, -1, -1)))
+    return front[order[::-1]]
+
+
+def test_golden_4ap05_auto_routing(tmp_path):
+    """A generated 4-objective 5x5 assignment (the reference's 4AP05 shape)
+    routes to the assignment engine and equals the N! enumeration."""
+    from moip_aira_tpu.utils.generate import ap_lp
+
+    f = tmp_path / "4AP05.lp"
+    f.write_text(ap_lp(5, 4, seed=1))
+    p = read_problem(str(f))
+    assert make_backend(p, "auto").name == "apbb"
     res = solve_front(p, n_workers=2, backend="auto")
-    g = golden("4AP05")
+    g = _matching_front(p, 5)
     assert res.points.shape == g.shape
     assert (res.points == g).all()
 
 
 def _bundled(name: str) -> np.ndarray:
     rows = []
-    with open(f"examples/{name}.out") as fh:
+    with open(f"{REF}/{name}.out") as fh:
         for line in fh:
             t = line.split()
             if t and all(x.lstrip("-").isdigit() for x in t):
@@ -201,7 +233,7 @@ def _bundled(name: str) -> np.ndarray:
 def test_golden_ladder(name):
     """The bundled ladder goldens (oracle-spot-checked at generation,
     examples/<name>.verify.json) reproduce through the engine."""
-    p = read_problem(f"examples/{name}.lp")
+    p = read_problem(f"{REF}/{name}.lp")
     res = solve_front(p, n_workers=2, backend="apbb", dp="off")
     g = _bundled(name)
     assert res.points.shape == g.shape

@@ -4,16 +4,16 @@ Mirrors Examples/CMakeLists.txt:4-28: for each instance, five configurations
 (serial, 2 synergistic workers, explicit spreading, EPP uniform, EPP normal)
 must all reproduce the committed golden Pareto front.  The oracle is the
 front itself plus the solution count (scripts/checkResults.sh:10 ignores
-timing/ipcount/banner lines).
+timing/ipcount/banner lines).  The instances are the bundled twins of the
+reference's examples (examples/README.md), each with its own golden.
 """
 
-import numpy as np
 import pytest
 
 from moip_aira_tpu.api import solve_front
 from moip_aira_tpu.io import read_problem
 
-from conftest import EXAMPLES
+from conftest import EXAMPLES, golden_front
 
 CONFIGS = [
     ("t1", dict(n_workers=1)),
@@ -23,24 +23,13 @@ CONFIGS = [
     ("t2-split-normal", dict(n_workers=2, split=True, split_normal=True)),
 ]
 
-FAST = ["2AP05", "3AP05", "3KP10"]
-SLOW = ["4KP10", "4AP05", "2KP50"]
-
-
-def golden_front(name: str) -> np.ndarray:
-    rows = []
-    with open(f"{EXAMPLES}/{name}.out") as fh:
-        for line in fh:
-            parts = line.split()
-            if parts and all(p.lstrip("-").isdigit() for p in parts):
-                rows.append([int(p) for p in parts])
-    return np.array(rows)
+FAST = ["G2AP05", "G3AP05", "G3KP10"]
+SLOW = ["G2KP50"]
 
 
 def check(name: str, backend: str, **kwargs):
-    p = read_problem(
-        f"{EXAMPLES}/{name}.lp" if not name.endswith("knapsack") else f"{EXAMPLES}/{name}.mop"
-    )
+    ext = ".mop" if name.endswith("knapsack") else ".lp"
+    p = read_problem(f"{EXAMPLES}/{name}{ext}")
     front = solve_front(p, backend=backend, **kwargs)
     expect = golden_front(name)
     assert front.points.shape == expect.shape, (
@@ -70,36 +59,34 @@ def test_golden_slow_jax(name, cfg_name, cfg):
 
 @pytest.mark.slow
 def test_golden_mop_jax():
-    check("moip_2_30_1_knapsack", "jax", n_workers=1)
+    check("moip_2_30_knapsack", "jax", n_workers=1)
 
 
 def test_front_counts_table():
-    """BASELINE.md table A solution counts for the fast instances."""
-    for name, count in [("2AP05", 9), ("3AP05", 12), ("3KP10", 6)]:
+    """Solution counts of the fast twins, from their golden footers."""
+    for name, count in [("G2AP05", 6), ("G3AP05", 7), ("G3KP10", 18)]:
         p = read_problem(f"{EXAMPLES}/{name}.lp")
         front = solve_front(p, n_workers=1, backend="numpy")
         assert front.solution_count == count
 
 
-# ---- wave tier: the PRODUCTION TPU path on the reference goldens ----------
-# The wave backend is what every real TPU run takes (api.make_backend
-# 'auto'); run it through the same 5-config matrix as numpy/jax so the
-# contract backend and the tested backend are the same.  CPU interpret mode;
-# fragments both off (per-LP waves) and on (device B&B subtrees).
+# ---- wave tier: the GPU production path on the goldens -------------------
+# The wave backend is what every GPU run of an off-family instance takes
+# (api.make_backend 'auto'); run it through the same 5-config matrix as
+# numpy/jax so the contract backend and the tested backend are the same.
 
 
-def _wave_backend(name: str, frag: bool):
+def _wave_backend(name: str):
     from moip_aira_tpu.solver.wave import WaveLexBackend
 
     p = read_problem(f"{EXAMPLES}/{name}.lp")
-    return p, WaveLexBackend(p, fragments=frag, batch_width=8)
+    return p, WaveLexBackend(p, batch_width=8)
 
 
 @pytest.mark.parametrize("cfg_name,cfg", CONFIGS, ids=[c[0] for c in CONFIGS])
-@pytest.mark.parametrize("frag", [False, True], ids=["perLP", "frag"])
 @pytest.mark.parametrize("name", FAST)
-def test_golden_fast_wave(name, frag, cfg_name, cfg):
-    p, be = _wave_backend(name, frag)
+def test_golden_fast_wave(name, cfg_name, cfg):
+    p, be = _wave_backend(name)
     front = solve_front(p, backend=be, **cfg)
     expect = golden_front(name)
     assert front.points.shape == expect.shape, (
@@ -107,6 +94,3 @@ def test_golden_fast_wave(name, frag, cfg_name, cfg):
     )
     assert (front.points == expect).all(), f"{name}: front mismatch"
 
-
-# (the MOIP_DUAL golden tier was deleted with the dual-simplex path in
-# round 5 — see solver/pallas_bb.py's tombstone note for the measurements)

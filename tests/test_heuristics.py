@@ -105,10 +105,12 @@ def test_sweep_hint_rides_feeder_to_wave_incumbent():
     from moip_aira_tpu.api import solve_front
     from moip_aira_tpu.solver.wave import WaveLexBackend
 
-    p = read_problem("/root/reference/Examples/2AP05.lp")
+    from conftest import EXAMPLES, golden_front
+
+    p = read_problem(f"{EXAMPLES}/G2AP05.lp")
     be = WaveLexBackend(p, batch_width=16)
     front = solve_front(p, n_workers=2, backend=be)
-    assert front.solution_count == 9
+    assert np.array_equal(front.points, golden_front("G2AP05"))
 
 
 def _ap_problem():

@@ -24,6 +24,7 @@ from moip_aira_tpu.solver.kp_bb import (
 )
 from moip_aira_tpu.solver.lex import LexRequest, NumpyLexBackend
 
+from conftest import EXAMPLES
 from test_differential import brute_force_front
 
 
@@ -63,7 +64,7 @@ def random_kp(seed: int, k: int = 2, ncap: int = 2, mirror: bool = False):
 
 
 def test_detects_bundled_kp2d():
-    p = read_problem("examples/KP2D50.lp")
+    p = read_problem(f"{EXAMPLES}/KP2D50.lp")
     fam = detect_kp_family(p)
     assert fam is not None
     assert fam.W.shape == (2, 50)
@@ -72,12 +73,12 @@ def test_detects_bundled_kp2d():
 
 
 def test_rejects_assignment_family():
-    p = read_problem("/root/reference/Examples/2AP05.lp")
+    p = read_problem(f"{EXAMPLES}/G2AP05.lp")
     assert detect_kp_family(p) is None
 
 
 def test_detects_mirrored_mop():
-    p = read_problem("examples/moip_2_30_knapsack.mop")
+    p = read_problem(f"{EXAMPLES}/moip_2_30_knapsack.mop")
     fam = detect_kp_family(p)
     if fam is not None:
         assert fam.mirror
@@ -156,10 +157,10 @@ def test_pool_and_pegging_paths_exercise():
 
 
 def test_golden_kp2d50():
-    p = read_problem("examples/KP2D50.lp")
+    p = read_problem(f"{EXAMPLES}/KP2D50.lp")
     res = solve_front(p, n_workers=2, backend="kpbb", dp="off")
     golden = []
-    with open("examples/KP2D50.out") as fh:
+    with open(f"{EXAMPLES}/KP2D50.out") as fh:
         for line in fh:
             t = line.split()
             if t and all(x.lstrip("-").isdigit() for x in t):
@@ -172,10 +173,10 @@ def test_golden_kp2d50():
 @pytest.mark.slow
 @pytest.mark.parametrize("name", ["KP2D100", "KP2D200"])
 def test_golden_kp2d_ladder(name):
-    p = read_problem(f"examples/{name}.lp")
+    p = read_problem(f"{EXAMPLES}/{name}.lp")
     res = solve_front(p, n_workers=2, backend="kpbb", dp="off")
     golden = []
-    with open(f"examples/{name}.out") as fh:
+    with open(f"{EXAMPLES}/{name}.out") as fh:
         for line in fh:
             t = line.split()
             if t and all(x.lstrip("-").isdigit() for x in t):

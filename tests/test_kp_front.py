@@ -12,44 +12,38 @@ from moip_aira_tpu.api import solve_front
 from moip_aira_tpu.io import read_problem
 from moip_aira_tpu.solver import kp_front as kf
 
-from conftest import EXAMPLES
+from conftest import EXAMPLES, golden_front
 
 
 def _golden_front(name: str) -> np.ndarray:
-    rows = []
-    with open(f"{EXAMPLES}/{name}.out") as fh:
-        for line in fh:
-            parts = line.split()
-            if parts and all(p.lstrip("-").isdigit() for p in parts):
-                rows.append([int(p) for p in parts])
-    return np.array(rows)
+    return golden_front(name)
 
 
 # ---- detection ------------------------------------------------------------
 
 
 def test_detects_reference_2kp50():
-    p = read_problem(f"{EXAMPLES}/2KP50.lp")
+    p = read_problem(f"{EXAMPLES}/G2KP50.lp")
     kp = kf.detect_kp2(p)
     assert kp is not None
     assert kp.negate is False
-    assert kp.cap == 1917  # floor of the fractional capacity 1917.5
+    assert kp.cap == 2055  # floor of the fractional capacity 2055.5
 
 
 def test_detects_reference_mop():
-    p = read_problem(f"{EXAMPLES}/moip_2_30_1_knapsack.mop")
+    p = read_problem(f"{EXAMPLES}/moip_2_30_knapsack.mop")
     kp = kf.detect_kp2(p)
     assert kp is not None
     assert kp.negate is True  # minimised negative values
 
 
 def test_rejects_three_objectives():
-    p = read_problem(f"{EXAMPLES}/3KP10.lp")
+    p = read_problem(f"{EXAMPLES}/G3KP10.lp")
     assert kf.detect_kp2(p) is None
 
 
 def test_rejects_assignment():
-    p = read_problem(f"{EXAMPLES}/2AP05.lp")
+    p = read_problem(f"{EXAMPLES}/G2AP05.lp")
     assert kf.detect_kp2(p) is None
 
 
@@ -57,9 +51,9 @@ def test_rejects_assignment():
 
 
 def test_2kp50_front_matches_golden_np_and_jax():
-    p = read_problem(f"{EXAMPLES}/2KP50.lp")
+    p = read_problem(f"{EXAMPLES}/G2KP50.lp")
     kp = kf.detect_kp2(p)
-    want = _golden_front("2KP50")
+    want = _golden_front("G2KP50")
     got_np = kf.front_np(kp)
     assert np.array_equal(got_np, want)
     got_jax = kf.front_jax(kp)
@@ -68,17 +62,17 @@ def test_2kp50_front_matches_golden_np_and_jax():
 
 @pytest.mark.slow
 def test_mop_front_matches_golden():
-    p = read_problem(f"{EXAMPLES}/moip_2_30_1_knapsack.mop")
+    p = read_problem(f"{EXAMPLES}/moip_2_30_knapsack.mop")
     kp = kf.detect_kp2(p)
     got = kf.front_jax(kp)
-    want = _golden_front("moip_2_30_1_knapsack")
+    want = _golden_front("moip_2_30_knapsack")
     assert np.array_equal(got, want)
 
 
 def test_api_routes_dp_and_matches_golden():
-    p = read_problem(f"{EXAMPLES}/2KP50.lp")
+    p = read_problem(f"{EXAMPLES}/G2KP50.lp")
     front = solve_front(p, dp="on")
-    want = _golden_front("2KP50")
+    want = _golden_front("G2KP50")
     assert np.array_equal(front.points, want)
     assert front.ip_count == 0  # no MIPs were solved
 

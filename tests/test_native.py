@@ -77,8 +77,8 @@ def test_engine_with_native_store():
 
     from conftest import EXAMPLES
 
-    p = read_problem(f"{EXAMPLES}/2AP05.lp")
+    p = read_problem(f"{EXAMPLES}/G2AP05.lp")
     import moip_aira_tpu.engine.worker as worker_mod
 
     front = solve_front(p, n_workers=1, backend="numpy")
-    assert front.solution_count == 9
+    assert front.solution_count == 6

@@ -11,7 +11,7 @@ from conftest import EXAMPLES
 
 
 def test_2ap05_shapes():
-    p = read_problem(f"{EXAMPLES}/2AP05.lp")
+    p = read_problem(f"{EXAMPLES}/G2AP05.lp")
     assert p.objcnt == 2
     assert p.objsen is Sense.MIN
     assert p.n == 25
@@ -21,40 +21,47 @@ def test_2ap05_shapes():
     # binaries
     assert p.is_int.all()
     assert np.all(p.lb == 0) and np.all(p.ub == 1)
-    # first objective first coefficient (Examples/2AP05.lp: 19 X1X1)
-    assert p.C[0, 0] == 19.0
-    assert p.C[1, 0] == 5.0
+    # first coefficient of each objective (examples/G2AP05.lp: 16 X1X1, 8 X1X1)
+    assert p.C[0, 0] == 16.0
+    assert p.C[1, 0] == 8.0
 
 
-def test_objcnt_from_last_rhs():
-    for name, k in [("2AP05", 2), ("3AP05", 3), ("4AP05", 4), ("4KP10", 4)]:
+def test_objcnt_from_last_rhs(tmp_path):
+    for name, k in [("G2AP05", 2), ("G3AP05", 3), ("G3KP10", 3)]:
         p = read_problem(f"{EXAMPLES}/{name}.lp")
         assert p.objcnt == k, name
+    # four objectives (the reference's 4AP05/4KP10 shapes), generated
+    from moip_aira_tpu.utils.generate import ap_lp, kp_lp
+
+    for name, text in [("4AP05", ap_lp(5, 4, seed=1)), ("4KP10", kp_lp(10, 4, seed=1))]:
+        f = tmp_path / f"{name}.lp"
+        f.write_text(text)
+        assert read_problem(str(f)).objcnt == 4, name
 
 
 def test_kp_sense_and_integer_defaults():
-    p = read_problem(f"{EXAMPLES}/3KP10.lp")
+    p = read_problem(f"{EXAMPLES}/G3KP10.lp")
     assert p.objsen is Sense.MAX
     # `integers` section vars default to [0, 1] (CPLEX LP convention; the
     # golden fronts depend on it)
     assert p.is_int.all()
     assert np.all(p.ub == 1.0)
-    assert p.row_ub[0] == 295.0 and p.row_lb[0] == -INF
+    assert p.row_ub[0] == 405.5 and p.row_lb[0] == -INF
 
 
 def test_mop_reader():
-    p = read_problem(f"{EXAMPLES}/moip_2_30_1_knapsack.mop")
+    p = read_problem(f"{EXAMPLES}/moip_2_30_knapsack.mop")
     assert p.objcnt == 2
     assert p.objsen is Sense.MIN  # MPS default
     assert p.n == 30
     assert p.m_struct == 1  # the knapsack row; leading N rows are objectives
-    assert p.row_ub[0] == 1188.0
+    assert p.row_ub[0] == 1220.0
     assert p.is_int.all()
     # explicit LO/PL bounds -> [0, +inf)
     assert np.all(p.lb == 0) and np.all(p.ub == INF)
-    # first objective (OBJECTIV) coefficient of x#1 is -77
-    assert p.C[0, 0] == -77.0
-    assert p.C[1, 0] == -80.0  # Cost_1
+    # first objective (OBJECTIV) coefficient of x#1 is -83
+    assert p.C[0, 0] == -83.0
+    assert p.C[1, 0] == -70.0  # Cost_1
 
 
 def test_unknown_extension():

@@ -103,10 +103,11 @@ def test_batch_warm_start_correct_and_adversarial():
 
 
 def test_batch_on_bundled_instance_stage_lps():
-    """Stage LPs from a real bundled instance (2AP05 + objective rows)."""
+    """Stage LPs from a real bundled instance (G2AP05 + objective rows)."""
+    from conftest import EXAMPLES
     from moip_aira_tpu.io import read_problem
 
-    p = read_problem("/root/reference/Examples/2AP05.lp")
+    p = read_problem(f"{EXAMPLES}/G2AP05.lp")
     A_full = np.vstack([p.A, p.C])
     ws = SimplexWorkspace(A_full)
     rng = np.random.default_rng(3)

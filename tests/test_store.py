@@ -127,7 +127,7 @@ def test_index_matches_bruteforce_fuzz():
 
 
 def test_index_sublinear_scaling():
-    """VERDICT r3 #6 done-criterion: query cost must not grow linearly with
+    """Query cost must not grow linearly with
     the store.  Front-shaped data (few distinct result vectors — what AIRA
     stores actually hold): find at 64k entries must stay within 8x of find
     at 1k (the raw O(n) scan would be ~64x)."""

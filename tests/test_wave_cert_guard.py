@@ -17,7 +17,7 @@ and 1 below break pre-fix).
 import numpy as np
 import pytest
 
-from conftest import EXAMPLES
+from conftest import EXAMPLES, golden_front
 from test_differential import brute_force_front, random_problem
 
 
@@ -55,21 +55,19 @@ def test_random_front_exact_when_all_certificates_fail(seed):
 
     p = random_problem(seed, 2)
     want = sorted(map(tuple, brute_force_front(p)))
-    be = WaveLexBackend(p, batch_width=32, engine="xla")
+    be = WaveLexBackend(p, batch_width=32)
     _poison(be)
     got = _run_front(p, be)
     assert got == want, seed
 
 
 def test_3kp10_front_exact_when_all_certificates_fail():
-    from moip_aira_tpu.api import solve_front
     from moip_aira_tpu.io import read_problem
     from moip_aira_tpu.solver.wave import WaveLexBackend
 
-    p = read_problem(f"{EXAMPLES}/3KP10.lp")
-    ref = solve_front(p, n_workers=1, backend="numpy")
-    be = WaveLexBackend(p, batch_width=32, engine="xla")
+    p = read_problem(f"{EXAMPLES}/G3KP10.lp")
+    be = WaveLexBackend(p, batch_width=32)
     _poison(be)
     got = _run_front(p, be)
     assert be.verify_fallbacks > 0  # the fallback path genuinely ran
-    assert got == sorted(map(tuple, ref.points))
+    assert got == sorted(map(tuple, golden_front("G3KP10")))

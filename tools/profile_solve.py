@@ -1,11 +1,11 @@
-"""cProfile one warm solve through the production wave backend.
+"""cProfile one warm solve through the wave backend.
 
 Usage:
-    python tools/profile_solve.py 2AP20 [--top 40] [--dump /tmp/prof.out]
+    python tools/profile_solve.py 2AP20 [--top 40] [--dump prof.out]
 
 Runs one warm-up solve (compile + caches), then profiles a second solve
-and prints the top functions by cumulative and by self time.  The knob
-environment (MOIP_* knobs) applies as for tools/ab_dual.py.
+and prints the top functions by cumulative and by self time; ``--dump``
+also writes the raw profile.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("name")
     ap.add_argument("--top", type=int, default=40)
-    ap.add_argument("--dump", default="/tmp/prof_solve.out")
+    ap.add_argument("--dump", default=None)
     args = ap.parse_args()
 
     from bench_scale import instance_path
@@ -47,7 +47,8 @@ def main() -> int:
     prof.disable()
     dt = time.monotonic() - t0
     print(f"[profile] timed {dt:.1f}s, {res.solution_count} points", flush=True)
-    prof.dump_stats(args.dump)
+    if args.dump:
+        prof.dump_stats(args.dump)
     st = pstats.Stats(prof)
     st.sort_stats("cumulative")
     print("==== by cumulative ====")
